@@ -1,4 +1,4 @@
-"""cphnsw_tpu — TPU-native CP-HNSW: calibration-parameterless ANN search.
+"""cphnsw_tpu — calibration-parameterless ANN search in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the CP-HNSW
 reference library (indrajeetadityaroy9/rabitq-ann-search):
@@ -6,9 +6,9 @@ reference library (indrajeetadityaroy9/rabitq-ann-search):
 * Parameter-free search — all search hyperparameters derived at build time
   by an EVT-CRC statistical calibration pipeline.
 * DABS (Distance-Adaptive Beam Search) with online gamma adaptation.
-* N-bit RaBitQ + CAQ quantization of edge residuals, scanned with MXU
-  int-matmul kernels (the TPU-native replacement for AVX2 VPSHUFB FastScan),
-  with exact-L2 reranking.
+* N-bit RaBitQ + CAQ quantization, scanned with int8 matrix products (the
+  accelerator replacement for AVX2 VPSHUFB FastScan), with exact-L2
+  reranking.
 
 Public API (mirrors reference `cphnsw.CPIndex`, src/bindings.cpp:115-240):
     CPIndex(dim, bits) . build / finalize / search / search_batch /
@@ -17,27 +17,27 @@ Public API (mirrors reference `cphnsw.CPIndex`, src/bindings.cpp:115-240):
 
 import os as _os
 
-# Persistent XLA compilation cache: first-compile latency on remote TPU
-# backends is tens of seconds per program; cache hits are milliseconds.
-if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
-    try:
-        import jax as _jax
+import jax as _jax
 
-        # per-platform subdirectory: AOT artifacts compiled for the remote
-        # TPU host poison a CPU process (and vice versa) if shared
-        _plat = (_jax.config.jax_platforms or "tpu").split(",")[0]
-        if _plat != "cpu":  # CPU compiles are fast; cache only remote TPU
-            _cache = _os.path.join(
-                _os.path.dirname(__file__), "..", ".jax_cache", _plat
-            )
-            _jax.config.update(
-                "jax_compilation_cache_dir", _os.path.abspath(_cache)
-            )
-            _jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 0.5
-            )
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+# Persistent XLA compilation cache.  JAX reads JAX_COMPILATION_CACHE_DIR
+# itself; only when it is unset does the package pick a fixed directory
+# beside the checkout (a fixed path, so later processes hit it).
+DEFAULT_COMPILE_CACHE = _os.path.abspath(
+    _os.path.join(_os.path.dirname(__file__), "..", ".jax_cache")
+)
+
+
+def _configure_compile_cache(environ=_os.environ) -> str:
+    """Point JAX's persistent cache at DEFAULT_COMPILE_CACHE unless
+    JAX_COMPILATION_CACHE_DIR is set; returns the directory in use."""
+    if "JAX_COMPILATION_CACHE_DIR" in environ:
+        return environ["JAX_COMPILATION_CACHE_DIR"]
+    _jax.config.update("jax_compilation_cache_dir", DEFAULT_COMPILE_CACHE)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return DEFAULT_COMPILE_CACHE
+
+
+_configure_compile_cache()
 
 from cphnsw_tpu.api.index import CPIndex, Index
 

@@ -58,7 +58,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="cphnsw_tpu",
-        description="CP-HNSW-TPU benchmark runner (JSON-lines events).",
+        description="CP-HNSW benchmark runner (JSON-lines events).",
     )
     ap.add_argument("--config", type=Path, required=True)
     ap.add_argument(

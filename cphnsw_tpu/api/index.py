@@ -1,6 +1,6 @@
 """Index facade: the calibration-parameterless public API.
 
-TPU-native re-expression of Index / CPIndex
+Accelerator re-expression of Index / CPIndex
 (/root/reference/include/cphnsw/api/hnsw_index.hpp:67-1140 and
 /root/reference/src/bindings.cpp:115-240):
 
@@ -9,7 +9,7 @@ TPU-native re-expression of Index / CPIndex
     parameters: everything is derived at finalize() time by the graph
     statistics and EVT-CRC calibration pipeline.
   * The reference's compile-time template dispatch over padded dims
-    (src/bindings.cpp:77-113) is unnecessary on TPU: shapes are runtime
+    (src/bindings.cpp:77-113) is unnecessary here: shapes are runtime
     values that jit specializes on.
   * Unlike the reference, search results are mapped back to the caller's
     original vector indices (the reference returns BFS-reordered internal
@@ -73,7 +73,7 @@ class Index:
         self._upper = None
         # beam entries expanded per search step: >1 trades a few wasted
         # expansions for proportionally fewer (serial) while_loop steps —
-        # a large win on TPU where each step is latency-bound
+        # a win wherever each step is latency-bound
         self._expand_width = 4
         self._dim = dim
         self._bits = bits
@@ -530,33 +530,14 @@ class Index:
         return self
 
 
-# Scan store HBM budget, retained for sizing diagnostics.  Round 5
-# DEMOTED the graph engine from auto selection entirely (PARITY.md
-# "Engine crossover"): (a) at every measured scale the scan wins by
-# 2-3 orders of magnitude at higher recall (1M/128d: 54k QPS @ 0.999 vs
-# a flat ~142 QPS @ 0.92 that does NOT improve with batch size — the
-# lockstep beam is work-bound, not latency-bound); (b) the "memory
-# fallback" was illusory: the graph store (raw 4P + R neighbor blocks
-# ~ R*bits*P/8 + aux) is ~2.4x LARGER per row than the scan store
-# (raw 4P + int8 sketch P + packed planes bits*P/8), so any store too
-# big for the scan is far too big for the graph; (c) the compute
-# crossover (graph's ~7 ms/query flat vs the scan's ~N * 6e-9 ms/query)
-# sits at ~10^9 rows — two orders beyond what a 16 GB chip can hold
-# either way.  Beyond one chip the architecture shards
-# (ShardedScanIndex), keeping per-chip N inside the scan's envelope.
-# The graph engine remains available explicitly (engine="graph") as the
-# reference-parity DABS implementation and via ShardedIndex.
-SCAN_HBM_BUDGET = 8 << 30
-
-
-def _estimate_scan_bytes(n: int, dim: int, bits: int = 1) -> int:
-    p = hadamard.next_pow2(dim)
-    n_pad = -(-n // 256) * 256
-    raw = n_pad * p * 4
-    sketch = n_pad * p  # int8 rerank sketch (round 5)
-    codes = n_pad * max(p // 32, 1) * 4 * bits  # packed uint32 bit-planes
-    aux = n_pad * 4 * 7  # node_aux rows + norm_sq
-    return raw + sketch + codes + aux
+# Engine choice: auto always takes the scan.  The graph store (raw 4P +
+# R neighbor blocks ~ R*bits*P/8 + aux) is ~2.4x LARGER per row than the
+# scan store (raw 4P + int8 sketch P + packed planes bits*P/8), so no
+# store that is too big for the scan fits the graph, and the lockstep
+# beam search is work-bound where the scan is one streamed contraction.
+# Beyond one device the scan shards (ShardedScanIndex).  The graph engine
+# stays available explicitly (engine="graph") as the reference-parity
+# DABS implementation and via ShardedIndex.
 
 
 class CPIndex:
@@ -565,10 +546,9 @@ class CPIndex:
 
     The engine behind it is derived, not configured (the reference's
     calibration-parameterless contract extended to the engine choice):
-    `build()` picks the full-database MXU scan (api/scan_index.py) when
-    the store fits the single-chip HBM budget, else the CP-HNSW graph
-    traversal (Index above).  `engine="scan"|"graph"` overrides; `load()`
-    detects the engine from the file header.
+    `build()` picks the full-database scan (api/scan_index.py; see the
+    engine-choice note above).  `engine="scan"|"graph"` overrides;
+    `load()` detects the engine from the file header.
     """
 
     _ENGINES = ("auto", "scan", "graph")
@@ -616,10 +596,8 @@ class CPIndex:
             vectors = np.asarray(vectors)
         name = self._engine_req
         if name == "auto":
-            # round 5: the scan engine at every single-chip scale (see
-            # the SCAN_HBM_BUDGET note); stores beyond one chip shard
-            # via ShardedScanIndex rather than falling back to a graph
-            # store that is larger AND slower
+            # the scan engine at every single-device scale (see the
+            # engine-choice note above)
             name = "scan"
         if self.engine != name:
             self._index = self._make_engine(name)

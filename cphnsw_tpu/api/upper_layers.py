@@ -5,7 +5,7 @@ Parity component for the reference's upper-layer machinery
 level assignment (level = floor(-ln(U) * mL), mL = 1/ln(M_UPPER)), one
 navigable graph per level, greedy descent from the top at query time.
 
-TPU-native construction: instead of the reference's sequential per-node
+Batched construction: instead of the reference's sequential per-node
 insertion (greedy descent + ef-limited search + alpha-CNG per inserted
 node, :566-613), each level's graph is built with the SAME batched
 NNDescent + alpha-CNG machinery used for layer 0, over the level's node
@@ -30,7 +30,8 @@ iteration gathers every query's current neighbor list, exact-scores it with
 a gathered matmul, and steps to the argmin until no query improves.
 
 The default Index entry strategy remains the sampled-entry seed scan
-(search/beam.py) — one dense matmul beats pointer-chasing descent on TPU —
+(search/beam.py) — one dense matmul beats pointer-chasing descent on an
+accelerator —
 but the hierarchy is available via Index(entry_strategy="hnsw") for parity
 and for datasets where it wins.
 """
@@ -159,7 +160,7 @@ def _bridge_components(sub_raw, sub_norm, sel, entry_local: int) -> jax.Array:
         # rotation can disconnect an earlier bridge): force direct
         # entry -> node edges (up to the entry row's degree) rather than
         # returning a layer that strands greedy descent — the exact
-        # failure this function exists to prevent (ADVICE r4)
+        # failure this function exists to prevent
         import warnings
 
         for _ in range(deg):

@@ -6,7 +6,7 @@ that makes the index "calibration-parameterless": every search-time constant
 (affine correction, ip_qo floor, gamma bounds/adaptation, the EVT slack
 ladder, the termination gamma) is derived from the built index itself.
 
-TPU split: estimator evaluations for all calibration samples run as ONE
+Device/host split: estimator evaluations for all calibration samples run as ONE
 batched device program (queries x parent edges — the reference loops
 per-query per-batch on the CPU, :786-871); the scalar statistics (Huber fit,
 MAD fences, Tukey fences, Grimshaw GPD) run host-side on the resulting

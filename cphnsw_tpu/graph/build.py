@@ -1,6 +1,6 @@
 """Graph construction orchestrator: NNDescent -> alpha-CNG -> residual codes.
 
-TPU-native re-expression of optimize_graph_adaptive
+Accelerator re-expression of optimize_graph_adaptive
 (/root/reference/include/cphnsw/graph/graph_refinement.hpp:438-553) plus the
 FastScan neighbor-block materialization (prune_and_write, :30-68):
 
@@ -17,7 +17,7 @@ FastScan neighbor-block materialization (prune_and_write, :30-68):
      (:204-278).
 
 The result is a flat SoA neighbor store (ids / packed planes / nop / ip_qo /
-ip_cp / wpc), the TPU layout replacing FastScanNeighborBlock.
+ip_cp / wpc), the device layout replacing FastScanNeighborBlock.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import numpy as np
 from cphnsw_tpu.graph import nndescent, pruning, stats as gstats
 from cphnsw_tpu.ops import hadamard, pack, quantize
 
-from cphnsw_tpu.utils.device import force
 
 
 @jax.tree_util.register_pytree_node_class
@@ -172,7 +171,7 @@ def _chunked_prune(
         out = _prune_chunk(
             raw, norm_sq, node_nop, cand_ids, cand_dists, jnp.int32(start)
         )
-        force(out)  # HBM throttle (block_until_ready is inert here)
+        jax.block_until_ready(out)  # bound live chunk transients
         parts.append(out)
     if len(parts) == 1:
         si, sd = parts[0]
@@ -256,7 +255,7 @@ def encode_neighbor_blocks(
     parts = []
     for start in range(0, n, b):
         out = _encode_chunk(raw, sel_ids, jnp.int32(start))
-        force(out)  # HBM throttle (block_until_ready is inert here)
+        jax.block_until_ready(out)  # bound live chunk transients
         parts.append(out)
     if len(parts) == 1:
         pl, no, qo, cp, wp = parts[0]

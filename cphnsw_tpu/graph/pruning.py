@@ -1,6 +1,6 @@
 """Batched alpha-CNG neighbor selection.
 
-TPU-native re-expression of select_neighbors_alpha_cng
+Batched re-expression of select_neighbors_alpha_cng
 (/root/reference/include/cphnsw/graph/neighbor_selection.hpp:21-88): the
 per-node greedy scan over distance-sorted candidates is inherently
 sequential (each admission depends on the already-selected set), so it runs

@@ -1,11 +1,12 @@
-"""Distance estimation: MXU fastscan + distance/lower-bound conversion.
+"""Distance estimation: matmul fastscan + distance/lower-bound conversion.
 
-TPU-native re-expression of the reference FastScan kernels
+Accelerator re-expression of the reference FastScan kernels
 (/root/reference/include/cphnsw/distance/fastscan_kernel.hpp).
 
 The AVX2 VPSHUFB 16-entry LUT scan (:17-87) exists on CPU because there is no
-small-matmul unit; on TPU the accumulated quantity fs = sum_d u_d * qbar_d is
-just an integer contraction, so it runs on the MXU as a (batched) matmul over
+small-matmul unit; on an accelerator the accumulated quantity
+fs = sum_d u_d * qbar_d is just an integer contraction, so it runs as a
+(batched) matmul over
 the quantized query levels.  The decode algebra ip = A*fs + B*wpc + C and the
 distance/lower-bound formulas (:89-194, :220-346) are kept verbatim so the
 EVT-CRC calibration math carries over unchanged.
@@ -38,7 +39,7 @@ def fastscan_sums(codes_u: jax.Array, q_u: jax.Array) -> jax.Array:
     """fs[..., c] = sum_d codes_u[..., c, d] * q_u[..., d]  (int32).
 
     codes_u: (..., C, P) integer code levels; q_u: (..., P) quantized query.
-    The MXU replacement for compute_inner_products
+    The matmul replacement for compute_inner_products
     (fastscan_kernel.hpp:17-87) — one contraction instead of nibble shuffles.
     """
     return jax.lax.dot_general(
@@ -141,19 +142,19 @@ def exact_l2_sq(
 ) -> jax.Array:
     """max(|q|^2 + |v|^2 - 2<q,v>, 0) for batched q (..., P) x v (..., C, P).
 
-    The gathered-matmul rerank path (reference exact_l2 lambda,
-    search/rabitq_search.hpp:90-93, via dot_product_simd).
+    The gathered rerank path (reference exact_l2 lambda,
+    search/rabitq_search.hpp:90-93, via dot_product_simd).  <q,v> is an
+    f32 elementwise product summed over P, not a dot: XLA's reduction
+    fixes the summation order by shape, where a dot's autotuned GEMM
+    (tiles, split-K) can sum in another order in another program — so a
+    (query, row) pair gets the same f32 distance from every program
+    that reranks it.
     """
-    dots = jax.lax.dot_general(
-        vectors,
-        queries[..., None],
-        dimension_numbers=(
-            ((vectors.ndim - 1,), (queries.ndim - 1,)),
-            (tuple(range(vectors.ndim - 2)), tuple(range(queries.ndim - 1))),
-        ),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )[..., 0]
+    dots = jnp.sum(
+        vectors.astype(jnp.float32)
+        * queries.astype(jnp.float32)[..., None, :],
+        axis=-1,
+    )
     return jnp.maximum(
         query_norm_sq[..., None] + vec_norm_sq - 2.0 * dots, 0.0
     )

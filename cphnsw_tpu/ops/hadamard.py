@@ -1,10 +1,10 @@
 """Batched fast Walsh-Hadamard transform and random Hadamard rotation.
 
-TPU-native re-expression of the reference's in-register AVX2 FHT butterfly
+Batched re-expression of the reference's in-register AVX2 FHT butterfly
 (/root/reference/include/cphnsw/encoder/transform/fht.hpp:23-57) and the
 3-layer random sign rotation (encoder/rotation.hpp:15-67).
 
-Design notes (TPU-first):
+Design notes:
   * The transform is expressed as log2(P) reshape/stack stages over the last
     axis, batched over arbitrary leading axes.  XLA fuses the stages into a
     handful of vector ops; no scalar loops, no data-dependent shapes.

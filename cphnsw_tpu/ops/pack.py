@@ -1,13 +1,13 @@
 """Bit-plane packing of N-bit RaBitQ codes.
 
-TPU-native equivalent of the reference's word-packed code storage
+Device-array equivalent of the reference's word-packed code storage
 (/root/reference/include/cphnsw/core/codes.hpp:96-135): codes u in [0, 2^B-1]
 are stored as B bit-planes, MSB first (plane 0 holds the most significant
 bit), each plane packed 32 coordinates per uint32 word.
 
 Packed layout is the at-rest / serialized representation (8-32x smaller than
-unpacked int8, so scans are HBM-bandwidth-friendly); kernels unpack tiles on
-the fly right before the MXU contraction.
+unpacked int8, so scans are memory-bandwidth-friendly); scans unpack tiles
+on the fly right before the int8 contraction.
 """
 
 from __future__ import annotations
@@ -58,9 +58,9 @@ def unpack_planes(planes: jax.Array, padded_dim: int) -> jax.Array:
 
 
 # Rows per unpack step for store-sized inputs: the shift/mask chain's
-# u32 intermediates do NOT always fuse (XLA materializes the broadcast
-# and the post-reshape copy at full size — 2 x 4.78 GB at 10M rows,
-# observed OOM), so whole-store unpacks roll through a lax.scan whose
+# u32 intermediates do NOT always fuse (XLA can materialize the
+# broadcast and the post-reshape copy at full size — 2 x 4.78 GB at 10M
+# rows), so whole-store unpacks roll through a lax.scan whose
 # per-step temps are bounded at ~256 MB while only the int8 OUTPUT
 # exists at full size.
 UNPACK_CHUNK = 1 << 18

@@ -1,6 +1,6 @@
 """RaBitQ / CAQ quantization: database codes, edge residuals, query encoding.
 
-TPU-native re-expression of the reference encoder
+Batched re-expression of the reference encoder
 (/root/reference/include/cphnsw/encoder/rabitq_encoder.hpp):
 
   * encode_vectors      <- RaBitQEncoder::encode_impl (1-bit, :225-263) and
@@ -12,9 +12,9 @@ TPU-native re-expression of the reference encoder
   * encode_residuals    <- compute_neighbor_aux / compute_neighbor_aux_nbit
                            (:138-181, :287-323), batched over all edges.
   * encode_queries      <- encode_query_raw + build_lut (:73-79, :98-136).
-                           On TPU the 16-entry VPSHUFB LUT is unnecessary —
+                           The 16-entry VPSHUFB LUT is unnecessary here —
                            the same decode algebra A*fs + B*wpc + C is kept
-                           with fs computed as an integer matmul on the MXU.
+                           with fs computed as an integer matmul.
 
 All semantics comments about ip_qo / ip_cp carrying an un-normalized
 ||c_bar|| factor that cancels in the estimator ratio (codes.hpp:52-76,
@@ -70,8 +70,8 @@ class EncodedResiduals(NamedTuple):
 class QueryCode(NamedTuple):
     """Batched equivalent of RaBitQQuery (core/codes.hpp:78-93).
 
-    q_u replaces the nibble LUT: fs = <code_u, q_u> is computed directly on
-    the MXU, and A*fs + B*wpc + C reconstructs the same quantity the
+    q_u replaces the nibble LUT: fs = <code_u, q_u> is computed directly as
+    an integer matmul, and A*fs + B*wpc + C reconstructs the same quantity the
     reference's VPSHUFB LUT scan accumulates.
     """
 

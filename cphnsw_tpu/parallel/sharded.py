@@ -2,20 +2,19 @@
 
 The distributed component with no reference counterpart (SURVEY.md
 section 2.3): the reference is a single-process OpenMP library; its only
-parallelism is shared-memory threads.  On TPU the index scales out over an
-ICI mesh instead:
+parallelism is shared-memory threads.  Here the index scales out over a
+device mesh instead:
 
   * mesh axes ("data", "model"): query batches shard over "data";
     the database — codes, graph, raw vectors — shards over "model"
     (each model-shard owns a contiguous slice of the dataset and builds
     its own independent CP-HNSW subgraph);
   * one search step = shard_map over the mesh: every device runs the full
-    DABS beam search on its local subgraph for its local query block,
-    offsets local ids to global, then all-gathers per-shard top-k along
-    "model" and merges — the cross-chip top-k all-gather merge from
-    BASELINE.json's north star;
-  * collectives ride ICI via jax.lax.all_gather; no NCCL/MPI analog
-    is needed.
+    search on its local shard for its local query block, offsets local
+    ids to global, then all-gathers per-shard top-k along "model" and
+    merges — the cross-device top-k all-gather merge from
+    BASELINE.json's north star (XLA lowers the all_gather to NCCL on
+    GPUs).
 """
 
 from __future__ import annotations
@@ -27,19 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:  # jax >= 0.4.35 top-level API; the experimental path is deprecated
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, **kw):
-        return _shard_map(f, **kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_legacy
-
-    # the legacy API spells the replication-check kwarg check_rep
-    def shard_map(f, **kw):
-        if "check_vma" in kw:
-            kw["check_rep"] = kw.pop("check_vma")
-        return _shard_map_legacy(f, **kw)
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cphnsw_tpu.graph.build import NeighborStore
@@ -149,7 +136,7 @@ def sharded_search(
 # (BASELINE.md "Deep100M sharded: per-chip scan + cross-chip top-k
 # all-gather merge").  Each model-shard owns a contiguous row slice of the
 # scan store (packed code planes + folded node constants + raw vectors);
-# one search step = shard_map{ local MXU scan -> local exact-L2 top-k ->
+# one search step = shard_map{ local int8 scan -> local exact-L2 top-k ->
 # all_gather along "model" -> merge }.  Per-shard top-k lists are exact
 # within their shard, so the merged top-k equals the single-chip result.
 # --------------------------------------------------------------------------
@@ -392,7 +379,7 @@ class ShardedScanIndex:
     """ScanIndex semantics with the store partitioned over the mesh's
     "model" axis and queries data-parallel over "data".
 
-    The build is SHARD-NATIVE (round-5; VERDICT r4 item 2): each model
+    The build is SHARD-NATIVE: each model
     shard's rows are staged, encoded, and folded on that shard's own
     device — no stage ever materializes more than one shard's store on a
     single device, so stores larger than one chip's HBM build as long as
@@ -616,15 +603,7 @@ class ShardedScanIndex:
             )
         nq = len(queries)
         n_data = self._mesh.shape["data"]
-        # the Pallas fused per-shard kernel runs when every mesh device
-        # is a real TPU; it needs the per-device query block padded to
-        # the kernel's row-tile granularity (the XLA path only needs the
-        # data-axis multiple)
-        fused = all(
-            d.platform == "tpu" for d in self._mesh.devices.flat
-        )
-        grain = n_data * (256 if fused else 1)
-        pad = (-nq) % grain
+        pad = (-nq) % n_data
         q_in = queries
         if pad:
             q_in = np.concatenate(
@@ -634,16 +613,11 @@ class ShardedScanIndex:
         chunk, n_eq, rem = scan.chunk_plan(n_local, len(q_in) // n_data)
         top_c = max(min(inner._budget.top_c(k_eff, inner._n), chunk), k_eff)
         aff_a, aff_b, n_dev = inner._dev_scalars
-        # same wire precision as the single-chip facade so sharded and
-        # single-chip results are bit-identical
-        from cphnsw_tpu.api.scan_index import QUERY_WIRE_DTYPE
-
-        q_in = q_in.astype(QUERY_WIRE_DTYPE)
         ids, dists = sharded_scan_search(
             self._store, jnp.asarray(q_in), inner._signs, aff_a, aff_b,
             n_dev, self._mesh, kappa=float((1 << self.bits) - 1),
             k=k_eff, top_c=top_c, chunk=chunk, n_eq=n_eq, rem=rem,
-            fused=fused,
+            fused=scan.use_kernel(),
         )
         ids = np.asarray(ids)[:nq].astype(np.int64)
         dists = np.asarray(dists)[:nq]
@@ -711,7 +685,10 @@ class ShardedScanIndex:
         for s in range(n_model):
             dev = build_devs[s]
             rows = max(0, min(n - s * per, per))
-            raw_s = jax.device_put(host_slice(raw_h, s), dev)
+            raw_s, norm_s = scan.pad_store_and_norms(
+                jax.device_put(host_slice(raw_h, s), dev),
+                rows=per, cols=raw_h.shape[1],
+            )
             planes_b.append(
                 jax.device_put(host_slice(node_host["planes"], s), dev)
             )
@@ -724,7 +701,7 @@ class ShardedScanIndex:
                 jax.device_put(np.int32(rows), dev),
             ))
             raw_b.append(raw_s)
-            norm_b.append(jnp.sum(raw_s * raw_s, axis=-1))
+            norm_b.append(norm_s)
         self._store = ShardedScanStore(
             planes=_assemble_sharded(planes_b, mesh),
             node_aux=_assemble_sharded(aux_b, mesh),

@@ -1,10 +1,10 @@
-"""Batched DABS beam search: batch-of-queries frontier traversal on TPU.
+"""Batched DABS beam search: batch-of-queries frontier traversal.
 
-TPU-native re-expression of rabitq_search::search
+Accelerator re-expression of rabitq_search::search
 (/root/reference/include/cphnsw/search/rabitq_search.hpp:60-277).  The
 pointer-chasing priority-queue loop becomes one lax.while_loop over the
 whole query batch: every iteration pops one beam entry per query (masked by
-per-query done flags), gathers that node's neighbor block, runs the MXU
+per-query done flags), gathers that node's neighbor block, runs the matmul
 fastscan + distance conversion for all Q*R edges at once, exact-reranks the
 survivors with a gathered matmul, and merges results/beam with top-k ops.
 
@@ -24,8 +24,8 @@ Semantics preserved per query (all masked, lockstep):
     per-query state makes the epoch trick unnecessary.
 
 The N-bit two-stage MSB path computes the MSB lower bound from planes 0-1
-and the full-precision estimate from all planes in the same pass (on TPU
-compute-both-and-select is cheaper than the data-dependent branch,
+and the full-precision estimate from all planes in the same pass (on an
+accelerator compute-both-and-select is cheaper than the data-dependent branch,
 SURVEY.md section 7).
 """
 
@@ -135,7 +135,7 @@ def search_batch(
 
     entry_candidates: (M,) node ids — the hub entry plus a fixed sample of
     the dataset.  Each query exact-scores all M candidates with ONE matmul
-    and seeds its beam with the n_seeds nearest.  This is the TPU-idiomatic
+    and seeds its beam with the n_seeds nearest.  This is the batch-idiomatic
     replacement for the reference's hierarchical greedy descent (SURVEY.md
     section 7 "Option B": hub entry + sampled entry beam): a coarse O(M)
     scan lands every query in its own region — and keeps recall on
@@ -282,10 +282,6 @@ def search_batch(
         slack_cnt = s.slack_cnt + expand_e.sum(1).astype(jnp.int32)
 
         # ---- score all E*R candidates per query ----
-        # (A fused Pallas gather+score kernel was built and measured on
-        # the chip: 127.0 ms vs this XLA path's 119.4 ms at Q=256 —
-        # identical results, ~6% slower — so it was retired; numbers in
-        # PARITY.md "Pallas fused step kernel".)
         er = expand_width * r
         g = neighbors.fused[cur_safe]                      # (Q, E, F)
         nbr_ids = g[..., :r].reshape(q, er)
@@ -439,8 +435,8 @@ def search_batch(
         all_est = jnp.concatenate([beam_est, cand_est], axis=1)
         all_ids = jnp.concatenate([s.beam_ids, nbr_ids], axis=1)
         all_lower = jnp.concatenate([s.beam_lower, enq_lower], axis=1)
-        # approx_max_k: the beam is a heuristic frontier — TPU-optimized
-        # approximate selection replaces the full bitonic sort that
+        # approx_max_k: the beam is a heuristic frontier — approximate
+        # selection replaces the full bitonic sort that
         # dominates the per-step cost (exactness is only needed in the
         # result heap, which uses exact top_k)
         neg_top, slot = jax.lax.approx_max_k(

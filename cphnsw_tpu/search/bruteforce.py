@@ -1,7 +1,7 @@
 """Graph-free RaBitQ brute-force scan: the minimum end-to-end slice.
 
 Estimate the distance from each query to ALL database vectors with the
-calibrated RaBitQ estimator (one MXU int-matmul over the whole code matrix),
+calibrated RaBitQ estimator (one int matmul over the whole code matrix),
 take the top-C candidates by estimate, then exact-L2 rerank the candidates
 with a gathered matmul (SURVEY.md section 7, build-order step 3).
 
@@ -50,7 +50,9 @@ def build_store(
     rot_centroid = hadamard.rotate(centroid, signs)
     k = float((1 << bits) - 1)
     cbar = (2.0 * enc.u.astype(jnp.float32) - k) / k
-    ip_cp = cbar @ rot_centroid / jnp.sqrt(float(p))
+    ip_cp = jnp.matmul(
+        cbar, rot_centroid, precision=jax.lax.Precision.HIGHEST
+    ) / jnp.sqrt(float(p))
     return BruteForceStore(
         raw=raw,
         norm_sq=jnp.sum(raw * raw, axis=-1),
@@ -78,7 +80,7 @@ def search(
     qpad = hadamard.pad_to(queries.astype(jnp.float32), p)
     qc = quantize.encode_queries(qpad, store.signs)
 
-    # Full-database fastscan: one (Q, P) x (P, N) int matmul on the MXU.
+    # Full-database fastscan: one (Q, P) x (P, N) int matmul.
     fs = jax.lax.dot_general(
         qc.q_u.astype(jnp.int32),
         store.codes_u.astype(jnp.int32),

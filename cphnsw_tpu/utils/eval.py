@@ -50,7 +50,7 @@ class CaseResult:
     # the derived (parameterless) search budget actually used for this
     # case: scan engine -> top_c at the evaluated k + the full anchor
     # table; graph engine -> the step budget.  Recorded so large-N cost
-    # anomalies are diagnosable from the artifact alone (VERDICT r4).
+    # anomalies are diagnosable from the artifact alone.
     search_budget: dict | None = None
 
 
@@ -81,7 +81,7 @@ def average_distance_ratio(
 
     if metric == "ip":
         # inner-product scores can be <= 0, where a clamped ratio would
-        # report ~1.0 (perfect) for arbitrarily bad results (ADVICE r4).
+        # report ~1.0 (perfect) for arbitrarily bad results.
         # Shift both sides by a common positive offset derived from the
         # observed score range so the ratio stays orientation-correct
         # (1.0 = perfect, > 1 worse) for any sign of the scores; missing
@@ -209,7 +209,7 @@ def bench_one_case(
 
 
 def _full_build_stages(index, synth_s, stage_s, total_s) -> dict:
-    """Whole-build stage table (VERDICT r4 item 8): device store
+    """Whole-build stage table: device store
     synthesis + build() staging + every finalize stage + the residual,
     so the stage sum always reconciles with build_time_s."""
     stages = {"device_synthesis": round(synth_s, 2),

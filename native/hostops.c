@@ -1,10 +1,10 @@
 /* Native host-side graph runtime ops for cphnsw_tpu.
  *
- * The TPU owns every batched compute path; these are the inherently
+ * The accelerator owns every batched compute path; these are the inherently
  * sequential host-side graph algorithms that back finalize():
  *
  *   - bfs_order:     cache-locality BFS renumbering of the pruned graph
- *                    (TPU-native replacement context: reference
+ *                    (replacement context: reference
  *                    rabitq_graph.hpp:204-278 does this in C++ too)
  *   - reverse_topk:  per-target capped reverse-edge lists ordered by
  *                    distance (reference graph_refinement.hpp:393-402

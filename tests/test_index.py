@@ -40,19 +40,14 @@ def test_index_recall(built, rng):
     ids, dists = index.search_batch(queries, k=10)
     recall = (ids[:, :, None] == gt[:, None, :]).any(-1).mean()
     assert recall > 0.9, f"recall@10={recall}"
-    # ids are in the caller's original order with exact distances
-    # (against the wire-precision query — the scan engine transmits
-    # queries as f16, api/scan_index.py QUERY_WIRE_DTYPE)
-    from cphnsw_tpu.api.scan_index import QUERY_WIRE_DTYPE
-
-    q_wire = queries.astype(QUERY_WIRE_DTYPE).astype(np.float32)
-    d_wire = ((q_wire[:, None, :] - x[None, :, :]) ** 2).sum(-1)
-    rows = np.arange(len(queries))[:, None]
+    # ids are in the caller's original order with exact distances from
+    # the f32 query (up to f32 rounding of |q|^2 + |x|^2 - 2<q,x>)
     valid = ids >= 0
-    np.testing.assert_allclose(
-        dists[valid], d_wire[rows, np.maximum(ids, 0)][valid],
-        rtol=1e-3, atol=1e-3,
-    )
+    q64 = queries.astype(np.float64)
+    x64 = x[np.maximum(ids, 0)].astype(np.float64)
+    d_true = ((q64[:, None, :] - x64) ** 2).sum(-1)
+    scale = (q64 ** 2).sum(-1)[:, None] + (x64 ** 2).sum(-1)
+    assert (np.abs(dists - d_true) / scale)[valid].max() <= 1e-5
 
 
 def test_single_query_matches_batch(built, rng):

@@ -98,14 +98,12 @@ def test_scan_index_recall(rng, bits):
     recall = (ids[:, :, None] == gt[:, None, :]).any(-1).mean()
     assert recall >= 0.9, f"bits={bits}: recall@10={recall}"
 
-    # reranked distances must be exact (against the query at wire
-    # precision — queries cross the host->device link as f16,
-    # api/scan_index.py QUERY_WIRE_DTYPE) and sorted
-    from cphnsw_tpu.api.scan_index import QUERY_WIRE_DTYPE
-
-    q_wire = queries.astype(QUERY_WIRE_DTYPE).astype(np.float32)
-    d_true = ((q_wire[:, None, :] - base[ids]) ** 2).sum(-1)
-    np.testing.assert_allclose(dists, d_true, rtol=1e-3, atol=1e-3)
+    # reranked distances are exact distances from the f32 query (up to
+    # f32 rounding of |q|^2 + |x|^2 - 2<q,x>) and sorted
+    q64, x64 = queries.astype(np.float64), base[ids].astype(np.float64)
+    d_true = ((q64[:, None, :] - x64) ** 2).sum(-1)
+    scale = (q64 ** 2).sum(-1)[:, None] + (x64 ** 2).sum(-1)
+    assert (np.abs(dists - d_true) / scale).max() <= 1e-5
     assert np.all(np.diff(dists, axis=1) >= -1e-5)
 
 
@@ -239,7 +237,7 @@ def test_k_exceeds_n(rng):
 
 @pytest.mark.parametrize("bits", [1, 2, 4])
 def test_fused_kernel_matches_xla_path(rng, bits):
-    """The Pallas fused scan+select (interpret mode on CPU) must return
+    """The Pallas scan+select kernel (interpret mode on CPU) must return
     the same candidates/results as the chunked XLA path (scores differ
     by ~1 ulp of FMA rounding, so compare the reranked output sets)."""
     base, idx = _build(rng, n=3000, dim=32, bits=bits)
@@ -295,7 +293,7 @@ def test_build_from_device_array(rng):
 
 def test_sketch_scan_mode(rng):
     """The int8 sketch-scan branch (huge candidate budgets stream the
-    sketch store through the fused kernel instead of gathering top_c
+    sketch store through the kernel instead of gathering top_c
     rows) must return near-exact results: the int8 sketch's distance
     error is far below survivor-cutoff gaps and the final rerank is
     exact f32."""
@@ -311,7 +309,7 @@ def test_sketch_scan_mode(rng):
     n_pad = arrays.raw.shape[0]
     chunk, n_eq, rem = scan.chunk_plan(n_pad, 64)
     aff_a, aff_b, n_dev = idx._dev_scalars
-    top_c = max(scan.SKETCH_SCAN_MIN_C, 8192)
+    top_c = 8192
     ids_s, d_s = scan.scan_search(
         arrays, qpad, idx._signs, aff_a, aff_b, n_dev, kappa=1.0,
         k=10, top_c=top_c, chunk=chunk, n_eq=n_eq, rem=rem,
@@ -333,8 +331,8 @@ def test_sketch_scan_mode(rng):
 
 def test_derived_sub_batch_scales_down():
     """Selection transients bound the sub-batch: small stores keep the
-    cap, the 10M 1-bit budget (bins ~52k) must drop it (the Q=1024
-    program overflowed HBM by 305 MB; Q=512 fits)."""
+    cap, the 10M 1-bit budget (bins ~52k) must drop it so the key
+    planes and decode scratch stay near 1 GB."""
     assert scan.derived_sub_batch(102400, 384) == 2048
     sub = scan.derived_sub_batch(10_000_128, 26080)
     assert sub <= 1024
@@ -372,3 +370,69 @@ def test_candidate_budget_monotone():
         assert c >= prev, (k, c, prev)
         assert c >= min(4 * k, n)
         prev = c
+
+
+@pytest.mark.parametrize("p", [32, 512])  # one contraction slice / a loop
+def test_kernel_tile_product_matches_xla(rng, p):
+    """The kernel's int8 tile product (interpret mode) equals XLA's int8
+    GEMM bit for bit; P=512 runs the FUSED_BK-sliced contraction loop."""
+    codes = jnp.asarray(rng.integers(-127, 128, (256, p)), jnp.int8)
+    q_u = jnp.asarray(rng.integers(0, 16, (128, p)), jnp.int8)
+    fs_k = scan.fused_fs(codes, q_u, interpret=True)
+    fs_x = jax.lax.dot_general(
+        q_u, codes, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )
+    np.testing.assert_array_equal(np.asarray(fs_k), np.asarray(fs_x))
+
+
+def test_fused_bin_plan_tiles_the_store():
+    for n_pad, top_c in [(2816, 40), (102400, 384), (1_000_192, 3040),
+                         (10_000_128, 26528)]:
+        bins, groups, rows = scan.fused_bin_plan(n_pad, top_c)
+        assert bins % scan.FUSED_BN == 0 and rows == bins * groups
+        assert rows >= n_pad and groups <= 1 << scan.GROUP_BITS
+        assert bins >= min(scan.FUSED_BIN_FACTOR * top_c, n_pad)
+    for p in (16, 128, 256, 1024, 2048):
+        assert scan.FUSED_BN % scan.fused_block_bins(p) == 0
+
+
+def test_gpu_backend_runs_the_compiled_kernel(rng, monkeypatch):
+    """The kernel is chosen on the GPU backend only, and ScanIndex never
+    asks for interpret mode: on the card it compiles or fails loudly."""
+    assert not scan.use_kernel()  # the CPU backend: XLA chunked path
+    monkeypatch.setattr(scan.jax, "default_backend", lambda: "gpu")
+    assert scan.use_kernel()
+    monkeypatch.undo()
+    base, idx = _build(rng, n=1000, dim=16, bits=1)
+    seen = []
+    real = scan.scan_search
+
+    def spy(*args, **kw):
+        seen.append(kw)
+        return real(*args, **{**kw, "interpret": True})
+
+    idx._fused = True  # what a GPU backend selects
+    monkeypatch.setattr(scan, "scan_search", spy)
+    ids, _ = idx.search_batch(base[:8], k=5)
+    assert seen and all(kw["fused"] and "interpret" not in kw for kw in seen)
+    assert (ids[:, 0] == np.arange(8)).all()
+
+
+def test_search_plan_modes(rng):
+    base, idx = _build(rng, n=6000, dim=16, bits=1)
+    plan = idx.search_plan(10)
+    assert plan["mode"] == "estimate-select" and not plan["kernel"]
+    assert plan["top_c"] == idx._budget.top_c(10, 6000)
+    idx._budget = scan.CandidateBudget(
+        anchors=np.asarray([1, 10, 100], np.int64),
+        ranks=np.asarray([8, scan.TWO_STAGE_MIN_C, 3000], np.int64),
+    )
+    assert idx.search_plan(10)["mode"] == "two-stage-gather"
+    idx._fused = True
+    plan = idx.search_plan(10)
+    assert plan["mode"] == "sketch-scan" and plan["kernel"]
+    # the kernel path selects survivors, so its sub-batch follows them
+    assert plan["sub_batch"] == scan.derived_sub_batch(
+        idx._arrays.raw.shape[0], scan._rerank_survivors(10, plan["top_c"])
+    )

@@ -218,7 +218,7 @@ def test_sharded_scan_equals_single_chip(rng):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_scan_shard_native_build(rng):
-    """Round-5 shard-native build (VERDICT r4 item 2): every store array
+    """Shard-native build: every store array
     is built through the mesh — no device ever holds more than its own
     1/S row slice — and quality matches the single-chip pipeline."""
     from cphnsw_tpu.api.scan_index import ScanIndex
@@ -332,7 +332,7 @@ def test_sharded_index_save_load(sharded_facade, rng, tmp_path):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_scan_skewed_partition(rng):
-    """Adversarial partition (VERDICT r4 weak #5): the dataset sorted so
+    """Adversarial partition: the dataset sorted so
     contiguous shards hold whole clusters — the worst case for pooled
     per-shard calibration/budget — must still clear the recall bar."""
     n, dim = 3000, 24
